@@ -45,7 +45,7 @@ def main() -> int:
     cfg = MODES[0]
     n = int(args.seconds * cfg.rf_fs)
     names = ["JAZZ FM ", "ROCK 101", "NEWS 24 ", "CLASSICA",
-             "TPU SDR ", "PODS FM ", "WAVE 88 ", "METAL X "]
+             "JAX SDR ", "PODS FM ", "WAVE 88 ", "METAL X "]
 
     print(f"Synthesizing {args.stations} stations "
           f"({args.seconds:.1f} s @ {cfg.rf_fs/1e6:.1f} MS/s each)...")
@@ -56,7 +56,7 @@ def main() -> int:
         pi = 0x1000 + s
         bits = rds_tx.standard_group_stream(
             pi=pi, pty=(s % 31), ps_name=names[s % len(names)],
-            radio_text=f"STATION {s} ON A TPU",
+            radio_text=f"STATION {s} ON A GPU",
             n_groups=int(args.seconds * 1187.5 / 104) + 2)
         rds_bb = rds_tx.bits_to_baseband(bits, cfg.rf_fs)
         cap = tx.synthesize_capture(

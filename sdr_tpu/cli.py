@@ -1,4 +1,4 @@
-"""Command-line receiver: the TPU-native equivalent of `./project <mode> <channels>`.
+"""Command-line receiver: the JAX equivalent of `./project <mode> <channels>`.
 
 Reference usage (src/project.cpp:392-393):
     rtl_sdr -f 102.9M -s 2.4M - | ./project 0 2 | aplay -c 2 -f S16_LE -r 48000
@@ -25,7 +25,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sdr_tpu",
-        description="TPU-native FM broadcast receiver (mono/stereo/RDS)")
+        description="FM broadcast receiver (mono/stereo/RDS) in JAX")
     p.add_argument("mode", type=int, nargs="?", default=0,
                    help="operating mode 0-3 (default 0)")
     p.add_argument("channels", type=int, nargs="?", default=1,
@@ -63,16 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None,
                    help="resume the streaming state from a checkpoint")
     p.add_argument("--fast", action="store_true",
-                   help="fast engines: fused int8 Pallas front end + "
-                        "feedforward carriers (fused synth+mix kernel) + "
-                        "tiled bf16 convs (87 dB front-end stream SNR, "
-                        "transparent for FM audio)")
-    p.add_argument("--exact-fast", action="store_true",
-                   help="exact-integer front end (int8x2): bit-exact "
-                        "reproducible channelizing at int8-MXU rate "
-                        "(~90 dB fixed-point coefficients), f32 everywhere "
-                        "else — determinism of the exact path without its "
-                        "cost")
+                   help="fast engines: the fused u8 front-end kernel (on a "
+                        "GPU) + feedforward carriers + bf16 FIR stages "
+                        "(transparent for FM audio)")
     p.add_argument("--profile", default=None,
                    help="write a jax.profiler trace to this directory "
                         "(per-stage named scopes included)")
@@ -103,6 +96,21 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def fast_engines() -> dict:
+    """The --fast engine set: the fused front-end kernel where it compiles
+    (a GPU), feedforward carrier recovery, bf16 FIR stages."""
+    from sdr_tpu import device
+    return dict(fused_frontend=device.backend() == "gpu", pll_impl="ff",
+                conv_dtype="bf16")
+
+
+def describe_engines(rx) -> str:
+    """One line naming the engines a Receiver runs."""
+    fe = "fused kernel" if rx.fused_frontend else "xla"
+    return (f"engines: front end {fe}, pll {rx.pll_impl}, "
+            f"fir {rx.filter_engine}/{rx.conv_engine}/{rx.conv_dtype}")
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if not 0 <= args.mode <= 3:
@@ -110,6 +118,8 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     import jax
+    from sdr_tpu import device
+    device.init_compile_cache()
     from sdr_tpu.config import get_mode
     from sdr_tpu.models.receiver import Receiver
     from sdr_tpu.io.stream import interleave_stereo_s16, pack_s16, read_u8_blocks
@@ -123,23 +133,12 @@ def main(argv: list[str] | None = None) -> int:
         return _run_wideband(args, cfg, stereo, rds)
     if args.stations:
         return _run_stations(args, cfg, stereo, rds)
-    print(f"Operating in mode {args.mode}, "
-          f"{'stereo' if stereo else 'mono'}{' + RDS' if rds else ''}",
-          file=sys.stderr)
-
-    # the production fast profile (bench.py headline engine set): int8
-    # single-matmul front end (87 dB stream SNR vs exact — transparent),
-    # feedforward carriers (fused synth+mix kernel on the stereo+RDS
-    # chain), tiled bf16 convs
-    fast = (dict(fused_frontend="int8", pll_impl="ff", conv_dtype="bf16",
-                 conv_engine="tiled")
-            if args.fast else {})
-    if args.fast and stereo and rds:
-        fast["fused_ifbank"] = "bf16"   # the bench.py headline engine set
-    if args.exact_fast:
-        fast["fused_frontend"] = "int8x2"
+    fast = fast_engines() if args.fast else {}
     want_if = args.psd_dump is not None or args.psd_anim is not None
     rx = Receiver(args.mode, stereo=stereo, rds=rds, emit_if=want_if, **fast)
+    print(f"Operating in mode {args.mode}, "
+          f"{'stereo' if stereo else 'mono'}{' + RDS' if rds else ''} "
+          f"({describe_engines(rx)})", file=sys.stderr)
     state = rx.init_state()
     if args.resume:
         from sdr_tpu.utils.checkpoint import load_state
@@ -263,7 +262,6 @@ def _run_wideband(args, cfg, stereo, rds):
     streaming the file block-wise so captures larger than RAM work."""
     import os
     import sys as _sys
-    import jax
     import numpy as np
     from sdr_tpu.models.receiver import Receiver
     from sdr_tpu.models.wideband import WidebandReceiver
@@ -305,14 +303,8 @@ def _run_wideband(args, cfg, stereo, rds):
               file=_sys.stderr)
     else:
         freqs = [float(f) for f in args.freqs.split(",") if f]
-    # the Pallas pipelined engine is the production channelizer on TPU
-    # (~11x the lax.map engine, BASELINE.md round 5); the XLA mfb engine
-    # stays the CPU path (per-tile interpret mode is slow on captures)
-    chan = WidebandChannelizer(
-        fs_wide, cfg.rf_fs, freqs,
-        engine="pallas" if jax.default_backend() == "tpu" else "mfb",
-        ingest="u8" if args.wideband_u8 else "f32",
-        compute_dtype="bf16" if args.fast else "f32")
+    chan = WidebandChannelizer(fs_wide, cfg.rf_fs, freqs,
+                               compute_dtype="bf16" if args.fast else "f32")
     fast = dict(fused_frontend=False,
                 pll_impl="ff" if args.fast else "auto")
     rx = Receiver(args.mode, stereo=stereo, rds=rds, **fast)
@@ -401,9 +393,9 @@ def _run_stations(args, cfg, stereo, rds):
     print(f"Decoding {k} stations x {n//2} IQ samples (streaming, batched)",
           file=_sys.stderr)
 
-    fast = (dict(fused_frontend="bf16", pll_impl="ff", conv_dtype="bf16")
-            if args.fast else {})
+    fast = fast_engines() if args.fast else {}
     rx = Receiver(args.mode, stereo=stereo, rds=rds, **fast)
+    print(describe_engines(rx), file=_sys.stderr)
     bs = rx.block_size_u8(args.blocks_per_step)
     if bs > n:
         bs = (n // rx.block_align_u8()) * rx.block_align_u8()

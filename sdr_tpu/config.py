@@ -1,4 +1,4 @@
-"""Mode/configuration registry for the TPU-native FM receiver.
+"""Mode/configuration registry for the FM receiver.
 
 This is the framework's config system: a frozen dataclass registry that
 reproduces the reference receiver's four operating modes exactly

@@ -3,7 +3,7 @@
 Reference: src/logfunc.cpp:14-43 (`genIndexVector`, `logVector`).  Each dump
 is an x/y two-column text file consumed by the reference's gnuplot scripts
 (data/example.gnuplot etc.).  Also provides a named-scope profiler shim over
-jax.profiler (the TPU-side analogue of the report template's per-stage
+jax.profiler (the device-side analogue of the report template's per-stage
 timing requirement, SURVEY §5.1).
 """
 

@@ -7,7 +7,7 @@ Reference semantics:
  - egress:  float32 audio -> s16 with NaN->0 guard and x16384 gain,
    interleaved R,L for stereo (reference: src/project.cpp:183-193).
 
-TPU-first: ship *bytes* to the device and decode there (SURVEY §7
+Device-first: ship *bytes* to the device and decode there (SURVEY §7
 hard-part 5 — 4.8 MB/s/channel of u8 beats 19.2 MB/s of f32 over PCIe);
 `decode_u8_iq` runs on-device under jit.
 """

@@ -1,9 +1,9 @@
 // Native stream runtime: bounded-ring block reader/writer threads.
 //
-// TPU-native equivalent of the reference's concurrency runtime
+// The equivalent of the reference's concurrency runtime
 // (src/project.cpp:17-141): there the producer thread reads u8 blocks from
 // stdin and hands them to consumers through a capacity-3 mutex/condvar
-// queue.  Here the DSP pipeline lives on the TPU under one jitted step, so
+// queue.  Here the DSP pipeline lives on the device under one jitted step, so
 // the native runtime's job is host I/O overlap: a reader thread pumps u8
 // blocks from a file descriptor into a bounded ring (backpressure by
 // blocking when full, like the reference's cvar wait at project.cpp:73-76),

@@ -1,17 +1,15 @@
-"""Tiled banded-GEMM FIR/resampler: MXU-shaped XLA alternative to conv.
+"""Tiled banded-GEMM FIR/resampler: a matmul-shaped XLA alternative to conv.
 
-XLA's conv lowering for the receiver's 1-input-channel FIR stages (audio
-resample N=1 out-channel stride-D, RDS resample N=U out-channels, RRC N=1)
-never reaches the MXU on TPU — measured bf16 == f32 throughput and
-~40 GB/s effective bandwidth (BASELINE.md per-stage table), an
-occupancy-bound lowering.  This module restructures the same math the way
-ops/pallas/ifbank_kernel.py does, but in *pure XLA*: group G consecutive
+The receiver's FIR stages are 1-input-channel convolutions (audio resample
+N=1 out-channel stride-D, RDS resample N=U out-channels, RRC N=1).  This
+module restructures the same math as dense matmuls: group G consecutive
 output super-blocks into one tile, materialize each tile's input window by
 a reshape + two slices (duplication = window-overlap only), and compute
 all G·U outputs of a tile as ONE dense (span x G·U) matmul whose matrix
-holds the polyphase filter bank on strided diagonals.  Outputs ride the
-MXU lane axis; channels ride M; XLA fuses the window assembly into the
-matmul's operand read.
+holds the polyphase filter bank on strided diagonals.  Channels ride M;
+XLA can fuse the window assembly into the matmul's operand read.  Which of
+the two engines ('conv' or 'tiled') is faster on a given device is a
+measurement (ROADMAP Speed 2).
 
 Exactly the reference resampler semantics (src/filter.cpp:67-103) — the
 filter-bank matrix B and the carried-tail geometry are reused verbatim
@@ -33,7 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sdr_tpu.ops.resample import _build_filter_bank
+from sdr_tpu.ops.resample import _build_filter_bank, _precision
 
 
 def _tile_band_matrix(B: np.ndarray, down: int, group: int) -> np.ndarray:
@@ -42,7 +40,7 @@ def _tile_band_matrix(B: np.ndarray, down: int, group: int) -> np.ndarray:
 
     A tile's window w[l] = window_src[j*G*down + l] then yields all G*U
     outputs of tile j as w @ A — the same terms conv-with-stride computes,
-    batched onto the MXU lane axis.
+    batched into one matmul.
     """
     L, up = B.shape
     span = (group - 1) * down + L
@@ -133,6 +131,7 @@ def _tiled_apply(a, up, down, state_len, L, group, compute_dtype, x, tail):
     out = jnp.einsum(
         "...ts,su->...tu",
         windows.astype(compute_dtype), a.astype(compute_dtype),
+        precision=_precision(compute_dtype),
         preferred_element_type=jnp.float32)
     y = out.reshape(*lead, n_tiles * group * up)[..., : nsuper * up]
     new_tail = x[..., n - state_len:]

@@ -1,7 +1,7 @@
 """Wideband channelizer: one wide IQ capture -> N FM station basebands.
 
 Beyond-reference capability: the reference consumes one tuned 2.4 MS/s
-station; a production TPU deployment captures a whole band segment at a
+station; a production deployment captures a whole band segment at a
 wideband rate and derives every station from it.  BASELINE's "64+
 simultaneous FM channels" then needs only ONE front-end stream per antenna.
 
@@ -16,7 +16,7 @@ into the filter: with oscillator theta(n) = phi0 + dphi*(n+1) and LPF h,
 so each station becomes a *complex band-pass* filter h~[k] = h[k]e^{-j dphi k}
 applied directly to the raw wideband stream, decimated in the same pass.
 The whole bank is ONE strided convolution with 2 input rails (I, Q) and 2K
-output channels — a (2*taps x 2K) constant matrix hitting the MXU — and the
+output channels — a (2*taps x 2K) constant matrix, i.e. a GEMM — and the
 only remaining oscillator work is a residual rotation at the *output* rate
 (1/D of the wideband rate).  No K x N wideband intermediates exist at all;
 the input block is read exactly once.
@@ -38,6 +38,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from sdr_tpu import device
 from sdr_tpu.ops.firdes import lowpass
 from sdr_tpu.ops.resample import PolyphaseResampler
 
@@ -52,30 +53,24 @@ class WidebandChannelizer:
         capture center) for each station.
       cutoff: anti-alias LPF cutoff (default 100 kHz, the FM channel).
       taps: LPF taps at the wideband rate.
-      engine: "mfb" (modulated filter bank, default), "pallas" (the mfb
-        GEMM inside an auto-pipelined Pallas grid — DMA/compute overlap
-        between tiles; ops/pallas/channelizer_kernel.py) or "mix" (v1
+      engine: "mfb" (modulated filter bank, default) or "mix" (v1
         oracle).
-      ingest: "f32" | "u8" — the raw-stream dtype the pallas engine's
-        carried tail is stored in (must match the blocks fed to it).
-      tile: pallas engine time-tile (output samples per grid step).
-      compute_dtype: "f32" (exact) or "bf16" — run the MFB conv with bf16
+      compute_dtype: "f32" (exact) or "bf16" — run the MFB GEMM with bf16
         inputs/filters (f32 accumulation).  The u8-ingest semantics stay
         exact ((x-128)/128 is representable in bf16); only the filter
         coefficients and wideband samples round, ~50 dB channelizer SNR —
-        transparent under FM demod's ~25 dB distortion floor, 4x MXU rate
-        and half the conv input traffic.
+        transparent under FM demod's ~25 dB distortion floor, at half the
+        GEMM input traffic.
     """
 
     def __init__(self, fs_wide: float, fs_out: float,
                  station_freqs: list[float], *, cutoff: float = 100e3,
                  taps: int = 101, engine: str = "mfb",
-                 compute_dtype: str = "f32", ingest: str = "f32",
-                 tile: int = 4096, out_dtype: str = "f32"):
+                 compute_dtype: str = "f32"):
         decim = fs_wide / fs_out
         assert abs(decim - round(decim)) < 1e-9, (
             f"fs_wide/fs_out = {decim} must be integral")
-        assert engine in ("mfb", "mix", "pallas"), engine
+        assert engine in ("mfb", "mix"), engine
         self.decim = int(round(decim))
         self.fs_wide = float(fs_wide)
         self.fs_out = float(fs_out)
@@ -95,18 +90,6 @@ class WidebandChannelizer:
         if engine == "mix":
             self._lpf_i = PolyphaseResampler(coeff, 1, self.decim)
             self._lpf_q = PolyphaseResampler(coeff, 1, self.decim)
-        elif engine == "pallas":
-            # pipelined Pallas im2col-GEMM engine (VERDICT r4 item 1):
-            # replaces the mfb lax.map loop with an auto-pipelined grid —
-            # tile t+1's DMA overlaps tile t's matmul
-            from sdr_tpu.ops.pallas.channelizer_kernel import PallasMFB
-            self.state_len = self.taps - 1
-            assert out_dtype in ("f32", "bf16"), out_dtype
-            self._pl = PallasMFB(
-                coeff, self._dphi, self.decim, tile=tile,
-                compute_dtype=self.compute_dtype, ingest=ingest,
-                out_dtype=(jnp.bfloat16 if out_dtype == "bf16"
-                           else jnp.float32))
         else:
             rhs = _modulated_bank(np.asarray(coeff, np.float64), self._dphi)
             self.state_len = self.taps - 1
@@ -167,8 +150,6 @@ class WidebandChannelizer:
                 "i_tail": self._lpf_i.init_state((self.k,)),
                 "q_tail": self._lpf_q.init_state((self.k,)),
             }
-        if self.engine == "pallas":
-            return self._pl.init_state()
         # mfb: one carried INTERLEAVED f32 tail (last 2*(taps-1) scalars)
         return {
             "phase": jnp.zeros((self.k,), jnp.float32),
@@ -187,8 +168,6 @@ class WidebandChannelizer:
                                self._lpf_i.state_len, self._lpf_i.L,
                                i_wide, q_wide, state)
         body = jnp.stack([i_wide, q_wide], axis=-1).reshape(-1)
-        if self.engine == "pallas":
-            return self._pl(body, state)
         return self._mfb_interleaved(body, state)
 
     def call_interleaved(self, wide: jax.Array, state):
@@ -196,8 +175,6 @@ class WidebandChannelizer:
         float32 or u8 (reference ingest semantics (x-128)/128,
         src/iofunc.cpp:62-69, decoded exactly inside the compute cast: the
         8x-larger f32 wideband stream never materializes in HBM)."""
-        if self.engine == "pallas":
-            return self._pl(wide, state)
         assert self.engine == "mfb", "interleaved ingest is an mfb feature"
         return self._mfb_interleaved(wide, state)
 
@@ -206,10 +183,9 @@ class WidebandChannelizer:
         n_out = n // self.decim
         # the GEMM time-tile doubles as the phasor factor c, so each tile's
         # residual rotation is one scalar-vector complex product per station.
-        # Bigger tiles = fewer lax.map iterations (a sequential TPU
-        # while-loop whose per-iteration overhead, not the conv FLOPs,
-        # bounded the round-3 engine); 16384 keeps the per-tile im2col a
-        # few MB and the factored base table bounded
+        # Bigger tiles = fewer lax.map iterations (a sequential loop with
+        # per-iteration overhead); 16384 keeps the per-tile im2col a few MB
+        # and the factored base table bounded
         tile = _largest_divisor_at_most(n_out, 16384)
         row, base, adv = self._phase_tables(n_out, self.decim, c=tile)
         return _channelize_mfb(self._bmat, row, base, adv, self.decim,
@@ -271,9 +247,8 @@ def _channelize_mfb(bmat, row, base, adv, decim, state_len, n_shift, tile,
                     compute_dtype, body, state):
     """MFB channelizer as an explicit im2col GEMM with in-tile rotation.
 
-    XLA's TPU lowering of the equivalent 2-input-channel strided conv never
-    reaches the MXU (measured: bf16 == f32 throughput, single-digit MFU);
-    the GEMM formulation does.  With window row j = 2*D*a + b the im2col
+    The equivalent 2-input-channel strided conv is written as a GEMM so it
+    runs as a dense matmul.  With window row j = 2*D*a + b the im2col
     matrix is A static shifted slices of the phase-reshaped stream —
     out[u, c] = sum_j B[j, c] * xb[2*D*u + j] — tiled by lax.map so the
     materialized im2col stays a few MB.  The residual per-station rotation
@@ -309,11 +284,14 @@ def _channelize_mfb(bmat, row, base, adv, decim, state_len, n_shift, tile,
           else xb[:need])
     xr = xb.reshape(rows, two_d)
     bm = bmat.astype(compute_dtype)
-    if compute_dtype == jnp.bfloat16 and jax.default_backend() != "tpu":
+    precision = None
+    if compute_dtype == jnp.bfloat16 and device.bf16_dot_needs_upcast():
         # CPU's dot thunk lacks bf16 x bf16 -> f32; keep the bf16 rounding
         # (numerics identical to storage-level bf16) but dot in f32
         xr = xr.astype(jnp.float32)
         bm = bm.astype(jnp.float32)
+    elif compute_dtype == jnp.float32:
+        precision = jax.lax.Precision.HIGHEST  # no TF32 on the exact path
 
     # per-block phase offset phasor (K, 1)
     pr = jnp.cos(state["phase"])[:, None]
@@ -331,7 +309,8 @@ def _channelize_mfb(bmat, row, base, adv, decim, state_len, n_shift, tile,
                                    (two_d, tile + n_shift))
         xim_t = jnp.concatenate([xt[:, s:s + tile] for s in range(n_shift)],
                                 axis=0)                # (2D*n_shift, tile)
-        out = jnp.dot(bmt, xim_t, preferred_element_type=jnp.float32)
+        out = jnp.dot(bmt, xim_t, precision=precision,
+                      preferred_element_type=jnp.float32)
         c_r, c_i = out[0::2], out[1::2]                # (K, tile)
         # tile phasor: (phase ⊕ row[a]) ⊗ base — one complex scalar/station
         ra = jax.lax.dynamic_slice_in_dim(rr, a, 1, axis=1)  # (K, 1)

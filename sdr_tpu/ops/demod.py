@@ -9,7 +9,7 @@ Two variants, matching the reference repertoire:
  - `fm_arctan`: atan2 + unwrap + phase difference with carried phase
    (reference: model/fmSupportLib.py:34-63 `fmDemodArctan`).
 
-TPU-first: the reference's per-sample loop has a trivial one-sample
+Vectorized: the reference's per-sample loop has a trivial one-sample
 recurrence (prev_i/prev_q is just the previous input sample), so it
 vectorizes exactly with a concat-shift — no scan needed (SURVEY §7 step 2).
 """

@@ -20,7 +20,7 @@ materializes in time domain:
 
 Exact to the direct form up to FFT rounding (tested vs PolyphaseResampler,
 all mode (U, D) pairs).  Most efficient when taps is large; at the
-reference's 51 taps the MXU filter-bank usually wins, but the engine is
+reference's 51 taps the direct filter bank is the usual choice, but the engine is
 selectable per stage (the "two interchangeable convolution engines" north
 star).
 """

@@ -6,9 +6,9 @@ and model/fmSupportLib.py:66-161.  In the reference these are offline
 analysis / unit-test tools, not in the audio path (SURVEY §1 L2); here they
 also back the FFT overlap-save convolution variant (ops/fft_conv.py).
 
-TPU-first: the transform *is* jnp.fft (XLA's native FFT); the explicit
-DFT-as-matmul variant is provided both as the O(N^2) reference oracle and
-because for small N a dense DFT matmul on the MXU beats the FFT butterfly.
+The transform *is* jnp.fft (XLA's native FFT); the explicit DFT-as-matmul
+variant is provided as the O(N^2) reference oracle (at full f32 precision)
+and as a dense-matmul alternative for small N.
 Bartlett PSD is a batched reshape + window + rfft — no loops.
 """
 
@@ -32,7 +32,8 @@ def dft(x: jax.Array) -> jax.Array:
     n = x.shape[-1]
     k = np.arange(n)
     w = np.exp(-2j * np.pi * np.outer(k, k) / n).astype(np.complex64)
-    return jnp.asarray(x, jnp.complex64) @ w
+    return jnp.matmul(jnp.asarray(x, jnp.complex64), w,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 @jax.jit
@@ -41,7 +42,7 @@ def idft(xf: jax.Array) -> jax.Array:
     n = xf.shape[-1]
     k = np.arange(n)
     w = np.exp(2j * np.pi * np.outer(k, k) / n).astype(np.complex64) / n
-    return xf @ w
+    return jnp.matmul(xf, w, precision=jax.lax.Precision.HIGHEST)
 
 
 @jax.jit

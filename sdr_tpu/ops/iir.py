@@ -6,7 +6,7 @@ reference receiver omits it (not in the course spec's signal chain); a
 production receiver needs it, so it is offered as an option
 (`Receiver(deemphasis_us=...)`).
 
-TPU-first: y[n] = a*y[n-1] + b*x[n] is a linear recurrence, which
+Parallel form: y[n] = a*y[n-1] + b*x[n] is a linear recurrence, which
 `jax.lax.associative_scan` evaluates in O(log N) depth instead of an
 N-step sequential scan — the composition (a2, b2) o (a1, b1) =
 (a1*a2, a2*b1 + b2) is associative.  Streaming state is the last output

@@ -7,9 +7,9 @@ cos(trigArg*ncoScale + phaseAdjust).  Streaming state is carried across
 blocks (the reference carries six scalars, src/filter.cpp:137; its
 ncoOut_state write at src/filter.cpp:150 is dead — overwritten at i=0).
 
-TPU-first: the recurrence is strictly sequential, so it runs as one
-`lax.scan` per block; batching across RF channels is done by `vmap`, which
-turns the scalar recurrence into VPU-lane-parallel ops (SURVEY §7 hard-part 1).
+The recurrence is strictly sequential, so it runs as one `lax.scan` per
+block; batching across RF channels is done by `vmap`, which turns the
+scalar recurrence into element-parallel ops (SURVEY §7 hard-part 1).
 
 Two numerically different but behaviorally equivalent formulations:
 
@@ -134,16 +134,16 @@ def pll_feedforward(x: jax.Array, state: PLLState, *, freq: float, fs: float,
                     nco_scale: float = 1.0, phase_adjust: float = 0.0,
                     norm_bandwidth: float = 0.01, window: int = 256,
                     out_dtype=jnp.float32):
-    """Feedforward carrier recovery — the TPU-native production engine.
+    """Feedforward carrier recovery — the fast production engine.
 
     The reference loop (src/filter.cpp:136-174) spends 240k strictly
     sequential atan2+sincos iterations per second tracking a tone whose
-    phase moves at kHz rates; that feedback recurrence is the receiver's
-    dominant cost on TPU (BASELINE.md per-stage table) and its per-sample
-    feedback cannot be chunked past ~32 samples without destabilizing
-    acquisition (the frozen-feedback stability product chunk*bw*Cp).  This
-    engine removes the feedback entirely — classic feedforward (block ML /
-    Viterbi-style) carrier estimation, restructured for the VPU/MXU:
+    phase moves at kHz rates; that feedback recurrence is a long serial
+    chain on any parallel device, and its per-sample feedback cannot be
+    chunked past ~32 samples without destabilizing acquisition (the
+    frozen-feedback stability product chunk*bw*Cp).  This engine removes
+    the feedback entirely — classic feedforward (block ML / Viterbi-style)
+    carrier estimation, restructured as whole-block array ops:
 
       1. MIX: rotate the real input by the nominal carrier ramp e^{-j w0 i}
          to complex baseband.  The ramp's cos/sin are trace-time f64-exact
@@ -213,9 +213,7 @@ def _ff_tables(n: int, window: int, freq: float, fs: float,
 def _ff_estimate_1d(zr, zi, st, wmod, r_adv, window: int):
     """ESTIMATE + UNWRAP from per-window coherent sums: returns the
     per-window synthesis parameters (off = r0 + phi_c, slope) and the new
-    PLLState — WITHOUT synthesizing the NCO (the SYNTHESIZE stage can run
-    here, in _ff_finish_1d, or fused into a Pallas pass that also mixes,
-    ops/pallas/ffmix_kernel.py)."""
+    PLLState — WITHOUT synthesizing the NCO (_ff_finish_1d does)."""
     two_pi = jnp.float32(2.0 * np.pi)
     r0 = st.trig_offset
     cr0, sr0 = jnp.cos(r0), jnp.sin(r0)
@@ -243,9 +241,7 @@ def _ff_finish_1d(zr, zi, st, tabs, *, n: int, window: int,
     zr/zi are Z_c = sum_{i in window c} x_i e^{-j ramp_i} (any positive
     scale — atan2 is scale-invariant, so sums and means are equivalent),
     WITHOUT the block's carried start rotation r0: it is applied here as
-    one complex rotation per window.  Shared tail of _ff_run_1d; also the
-    consumer of in-kernel mix sums (ops/pallas/ifbank_kernel.py emit_mix),
-    where the pilot / RDS-carrier streams never reach HBM.
+    one complex rotation per window.  Shared tail of _ff_run_1d.
     """
     rel = jnp.arange(window, dtype=jnp.float32) - (window - 1) / 2.0
     off, slope, new = _ff_estimate_1d(zr, zi, st, tabs["wmod"],
@@ -255,26 +251,6 @@ def _ff_finish_1d(zr, zi, st, tabs, *, n: int, window: int,
     nco = jnp.cos(theta * tabs["scale"] + tabs["adj"]
                   ).astype(out_dtype).reshape(n)
     return nco, new
-
-
-@partial(jax.jit, static_argnames=("freq", "fs", "nco_scale", "window", "n"))
-def pll_ff_params_from_sums(zr: jax.Array, zi: jax.Array, state: PLLState,
-                            *, freq: float, fs: float, n: int,
-                            nco_scale: float = 1.0, window: int = 256):
-    """Feedforward ESTIMATE stage only: per-window (off, slope) synthesis
-    parameters from precomputed MIX sums (see pll_feedforward_from_sums),
-    for a fused external SYNTHESIZE+mix pass.  Returns
-    ((off, slope), new_state), each (..., n//window)."""
-    wmod_f = _wrap_modulus(nco_scale)
-    w0_f64 = 2.0 * np.pi * (float(freq) / float(fs))
-    r_adv = jnp.float32((w0_f64 * n) % wmod_f)
-    wmod = jnp.float32(wmod_f)
-
-    fn = partial(_ff_estimate_1d, wmod=wmod, r_adv=r_adv, window=window)
-    for _ in range(zr.ndim - 1):
-        fn = jax.vmap(fn, in_axes=(0, 0, 0))
-    off, slope, new = fn(zr, zi, state)
-    return (off, slope), new
 
 
 def _ff_run_1d(x1, st, tabs, *, n: int, window: int,
@@ -365,7 +341,7 @@ def pll_chunked(x: jax.Array, state: PLLState, *, freq: float, fs: float,
                 nco_scale: float = 1.0, phase_adjust: float = 0.0,
                 norm_bandwidth: float = 0.01, lag_correction: bool = True,
                 chunk: int = 16):
-    """Chunk-vectorized PLL: the TPU-native redesign of the sequential loop.
+    """Chunk-vectorized PLL: a parallel redesign of the sequential loop.
 
     The reference loop updates phase every sample at Fs (240 kS/s) although
     the loop bandwidth is only bw*Fs (2.4 kHz at bw=0.01) — the feedback
@@ -377,8 +353,8 @@ def pll_chunked(x: jax.Array, state: PLLState, *, freq: float, fs: float,
     and phase value).  The only approximation is the frozen feedback inside
     a chunk — an O((K*bw)^2) phase error, inaudible for K*bw << 1.
 
-    K=16 cuts scan length 16x; each step does (..., K) vector math on the
-    VPU.  Validated behaviorally (lock, stereo separation, RDS decode) in
+    K=16 cuts scan length 16x; each step does (..., K) vector math.
+    Validated behaviorally (lock, stereo separation, RDS decode) in
     the test suite; use `pll` for bit-level work.
     """
     kp = jnp.float32(norm_bandwidth * PLL_CP)
@@ -421,26 +397,3 @@ def pll_chunked(x: jax.Array, state: PLLState, *, freq: float, fs: float,
     for _ in range(x.ndim - 1):
         fn = jax.vmap(fn)
     return fn(x, state)
-
-
-@partial(jax.jit, static_argnames=("freq", "fs", "nco_scale", "phase_adjust",
-                                   "window", "n", "out_dtype"))
-def pll_feedforward_from_sums(zr: jax.Array, zi: jax.Array, state: PLLState,
-                              *, freq: float, fs: float, n: int,
-                              nco_scale: float = 1.0,
-                              phase_adjust: float = 0.0, window: int = 256,
-                              out_dtype=jnp.float32):
-    """Feedforward carrier recovery from precomputed per-window MIX sums.
-
-    zr/zi (..., n//window) are sum_{i in window} x_i e^{-j ramp_i} at any
-    positive scale (atan2 is scale-invariant) — as produced by the fused
-    IF-bank's in-kernel mix (ops/pallas/ifbank_kernel.py FusedIFBankMix),
-    where the pilot / RDS-carrier streams never reach HBM.  Returns
-    (nco (..., n), new_state) — the same estimate/unwrap/synthesize tail
-    as pll_feedforward.
-    """
-    tabs = _ff_tables(n, window, freq, fs, nco_scale, phase_adjust)
-    fn = partial(_ff_finish_1d, n=n, window=window, out_dtype=out_dtype)
-    for _ in range(zr.ndim - 1):
-        fn = jax.vmap(fn, in_axes=(0, 0, 0, None))
-    return fn(zr, zi, state, tabs)

@@ -1,6 +1,6 @@
 """Stateful polyphase rational resampler (upsample-U / FIR / downsample-D).
 
-This is the single convolution engine of the receiver, the TPU-native
+This is the single convolution engine of the receiver, the device
 equivalent of the reference's `resample` (src/filter.cpp:67-103).  The
 reference computes, per kept output n (Nout = N*U/D):
 
@@ -10,14 +10,14 @@ with negative input indices resolved into a carried tail of the previous
 block's last taps-1 input samples (src/filter.cpp:85-91), and the tail
 refreshed from the current block (src/filter.cpp:95-102).
 
-TPU-first design
-----------------
+Design
+------
 Instead of the reference's scalar double loop, we factor the computation into
 a *filter bank*: outputs are grouped into super-blocks of U consecutive
 outputs, each consuming a window of L input samples advancing by exactly D
 samples per super-block.  The per-phase coefficient walk becomes a constant
 (L x U) matrix B, and the whole resampler is one strided 1-D convolution with
-U output channels — which XLA lowers onto the MXU.  The math is exact
+U output channels.  The math is exact
 (identical index arithmetic; see derivation in `_build_filter_bank`).
 
 The carried state is the last ceil((taps-1)/U) input samples — the only
@@ -85,13 +85,18 @@ class PolyphaseResampler:
         self.L = L
         self.state_len = s_eff
         # bf16 option: coefficient + signal rounding only, f32 accumulation
-        # (~45-50 dB conv SNR — the fast profile for behavioral chains)
+        # (~45-50 dB conv SNR — the fast profile for behavioral chains).
+        # Inputs and the carried tail are stored in the compute dtype: the
+        # cast is the first thing the conv does, so this is numerically
+        # identical to f32 storage, and the tail dtype no longer depends on
+        # the dtype of the stream fed in
         self.compute_dtype = compute_dtype or jnp.float32
         # conv rhs layout: (out_channels=U, in_channels=1, width=L)
         self._rhs = jnp.asarray(B.T[:, None, :], dtype=jnp.float32)
 
     def init_state(self, batch_shape: tuple[int, ...] = ()) -> jax.Array:
-        return jnp.zeros(batch_shape + (self.state_len,), dtype=jnp.float32)
+        return jnp.zeros(batch_shape + (self.state_len,),
+                         dtype=self.compute_dtype)
 
     def __call__(self, x: jax.Array, tail: jax.Array):
         """Apply to block x (..., N) with carried tail (..., state_len).
@@ -99,7 +104,17 @@ class PolyphaseResampler:
         Returns (y, new_tail) with y shape (..., N*U/D).
         """
         return _resample_apply(self._rhs, self.up, self.down, self.state_len,
-                               self.L, self.compute_dtype, x, tail)
+                               self.L, self.compute_dtype,
+                               x.astype(self.compute_dtype),
+                               tail.astype(self.compute_dtype))
+
+
+def _precision(compute_dtype):
+    """f32 products run at full f32 precision (a GPU would otherwise be free
+    to use TF32, ~3 decimal digits); bf16 products keep the default."""
+    if jnp.dtype(compute_dtype) == jnp.float32:
+        return jax.lax.Precision.HIGHEST
+    return None
 
 
 @partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
@@ -120,6 +135,7 @@ def _resample_apply(rhs, up, down, state_len, L, compute_dtype, x, tail):
         window_strides=(down,),
         padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=_precision(compute_dtype),
         preferred_element_type=jnp.float32,
     )                                                  # (batch, U, nsuper)
     y = jnp.moveaxis(out, 1, 2).reshape(*lead, nsuper * up)
@@ -173,19 +189,22 @@ class MultiFIR:
         self.taps = max(len(c) for c in coeffs)
         self.k = len(coeffs)
         self.state_len = self.taps - 1
-        self.compute_dtype = compute_dtype or jnp.float32
+        self.compute_dtype = compute_dtype or jnp.float32  # storage too
         rhs = np.stack([
             np.pad(np.asarray(c, np.float32),
                    (0, self.taps - len(c)))[::-1] for c in coeffs])
         self._rhs = jnp.asarray(rhs[:, None, :])  # (k, 1, max_taps)
 
     def init_state(self, batch_shape: tuple[int, ...] = ()) -> jax.Array:
-        return jnp.zeros(batch_shape + (self.state_len,), dtype=jnp.float32)
+        return jnp.zeros(batch_shape + (self.state_len,),
+                         dtype=self.compute_dtype)
 
     def __call__(self, x: jax.Array, tail: jax.Array):
         """x (..., N), tail (..., taps-1) -> (list of k outputs, new_tail)."""
         return _multi_fir_apply(self._rhs, self.state_len,
-                                self.compute_dtype, x, tail)
+                                self.compute_dtype,
+                                x.astype(self.compute_dtype),
+                                tail.astype(self.compute_dtype))
 
 
 @partial(jax.jit, static_argnums=(1, 2))
@@ -198,6 +217,7 @@ def _multi_fir_apply(rhs, state_len, compute_dtype, x, tail):
         lhs.astype(compute_dtype), rhs.astype(compute_dtype),
         window_strides=(1,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=_precision(compute_dtype),
         preferred_element_type=jnp.float32,
     )  # (batch, k, n)
     outs = [out[:, i, :].reshape(*lead, n) for i in range(rhs.shape[0])]

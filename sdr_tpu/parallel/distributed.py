@@ -1,7 +1,7 @@
 """Multi-host execution helpers.
 
-SURVEY §5.8: the TPU-native communication story is ICI collectives inside a
-slice and DCN across hosts via `jax.distributed`, with each host feeding its
+SURVEY §5.8: the communication story is collectives among the devices of a
+host and across hosts via `jax.distributed`, with each host feeding its
 own shard of RF channels (the reference's pipes/queues have no multi-process
 analogue to translate).  This module wires that up without requiring a
 cluster to import: initialization is explicit and test suites exercise the
@@ -20,8 +20,9 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Bring up the multi-host runtime (no-op on a single process).
 
-    On TPU pods with standard env plumbing, bare `jax.distributed.initialize()`
-    autodetects; args are for manual CPU/GPU clusters.
+    Clusters with standard env plumbing autodetect under a bare
+    `jax.distributed.initialize()`; the args are for manual CPU/GPU
+    clusters (a single GPU host exports none of that plumbing).
     """
     if num_processes is not None and num_processes <= 1:
         return

@@ -1,6 +1,6 @@
 """Device mesh helpers.
 
-TPU-native scale-out (SURVEY §2.3): the reference's only parallelism is a
+Scale-out (SURVEY §2.3): the reference's only parallelism is a
 3-pthread pipeline with a bounded queue (src/project.cpp:17-271); here the
 equivalents are
   - channel data-parallelism: independent RF stations sharded over a mesh

@@ -46,28 +46,22 @@ from sdr_tpu.config import ModeConfig
 from sdr_tpu.models.receiver import Receiver
 
 
-def halo_if(cfg: ModeConfig, if_align: int = 1) -> int:
+def halo_if(cfg: ModeConfig) -> int:
     """Left-context depth of the mono chain in IF samples.
 
     audio FIR needs ceil((audio_taps-1)/U) IF samples back, +1 for the
     discriminator's previous sample, + ceil((rf_taps-1)/rf_decim) IF slots
     whose raw windows reach past the halo start; rounded up to a multiple of
-    audio_decim (polyphase output-grid phase alignment) and of `if_align`
-    (e.g. the fused front-end's 128-sample output tile).
+    audio_decim (polyphase output-grid phase alignment).
     """
     ctx = (-(-(cfg.audio_taps - 1) // cfg.audio_interp) + 1
            + -(-(cfg.rf_taps - 1) // cfg.rf_decim))
-    unit = int(np.lcm(cfg.audio_decim, if_align))
-    return -(-ctx // unit) * unit
+    return -(-ctx // cfg.audio_decim) * cfg.audio_decim
 
 
-def halo_pairs(cfg: ModeConfig, if_align: int = 1) -> int:
+def halo_pairs(cfg: ModeConfig) -> int:
     """Left-context depth in raw IQ pairs."""
-    return halo_if(cfg, if_align) * cfg.rf_decim
-
-
-def _if_align(rx: Receiver) -> int:
-    return rx._fused_fe.out_tile if rx.fused_frontend else 1
+    return halo_if(cfg) * cfg.rf_decim
 
 
 def _pad_for_mesh(iq_u8, n_dev: int, align: int):
@@ -101,14 +95,13 @@ def timesharded_mono(rx: Receiver, iq_u8, mesh: Mesh, *, axis: str = "time"):
     """
     cfg = rx.cfg
     n_dev = mesh.shape[axis]
-    ia = _if_align(rx)
-    align = 2 * cfg.rf_decim * int(np.lcm(cfg.audio_decim, ia))
+    align = 2 * cfg.rf_decim * cfg.audio_decim
     iq_np, n_valid = _pad_for_mesh(iq_u8, n_dev, align)
     chunk_u8 = iq_np.shape[-1] // n_dev
-    halo_u8 = 2 * halo_pairs(cfg, ia)
+    halo_u8 = 2 * halo_pairs(cfg)
     assert chunk_u8 >= halo_u8, (
         f"per-device chunk {chunk_u8} u8 shorter than the halo {halo_u8}")
-    warm_audio = halo_if(cfg, ia) * cfg.audio_interp // cfg.audio_decim
+    warm_audio = halo_if(cfg) * cfg.audio_interp // cfg.audio_decim
 
     iq = jax.device_put(iq_np, NamedSharding(mesh, P(axis)))
 
@@ -140,15 +133,14 @@ def timesharded_mono(rx: Receiver, iq_u8, mesh: Mesh, *, axis: str = "time"):
 def stereo_warmup_if(rx: Receiver, warmup_if: int = 4096) -> int:
     """Left-halo depth (IF samples) for the time-sharded stereo chain:
     FIR/discriminator context + BPF group delay + mono delay line + PLL
-    lock-in, rounded so (a) the polyphase output grid and fused-front-end
-    tile stay aligned and (b) the pilot NCO's free-run phase over the
+    lock-in, rounded so (a) the polyphase output grid stays aligned and
+    (b) the pilot NCO's free-run phase over the
     zero-filled device-0 halo is a whole number of cycles (keeps device 0
     near-identical to the serial cold start)."""
     cfg = rx.cfg
-    ia = _if_align(rx)
-    ctx = (halo_if(cfg, 1) + cfg.bp_taps
+    ctx = (halo_if(cfg) + cfg.bp_taps
            + cfg.mono_delay * cfg.audio_decim // cfg.audio_interp + warmup_if)
-    unit = int(np.lcm(int(np.lcm(cfg.audio_decim, ia)),
+    unit = int(np.lcm(cfg.audio_decim,
                       int(cfg.if_fs) // int(np.gcd(int(cfg.pilot_freq),
                                                    int(cfg.if_fs)))))
     return -(-ctx // unit) * unit
@@ -169,8 +161,7 @@ def timesharded_stereo(rx: Receiver, iq_u8, mesh: Mesh, *,
     assert rx.stereo and not rx.rds, (
         "stereo time-sharding; for stereo+RDS use timesharded_full")
     n_dev = mesh.shape[axis]
-    ia = _if_align(rx)
-    align = 2 * cfg.rf_decim * int(np.lcm(cfg.audio_decim, ia))
+    align = 2 * cfg.rf_decim * cfg.audio_decim
     iq_np, n_valid = _pad_for_mesh(iq_u8, n_dev, align)
     chunk_u8 = iq_np.shape[-1] // n_dev
     warm_if = stereo_warmup_if(rx, warmup_if)
@@ -209,20 +200,18 @@ def full_warmup_if(rx: Receiver, warmup_if: int | None = None) -> int:
     one coherent-integration window; feedback engines need the RDS carrier
     loop's pull-in (bw=0.003 -> ~4x the stereo warm-up, the sizing the
     round-2 module docstring gave).  Rounded to the lcm of every grid the
-    chain carries (audio polyphase, RDS resampler/symbol grid, ff window,
-    fused-front-end tile).
+    chain carries (audio polyphase, RDS resampler/symbol grid, ff window).
     """
     cfg = rx.cfg
     if warmup_if is None:
         warmup_if = 2048 if rx.pll_impl == "ff" else 16384
-    ia = _if_align(rx)
     # FIR context: RF + IF BPF pair + squaring BPF + 3 kHz LPF + RRC
     # (expressed at the IF rate), plus the channel-vs-carrier delay line
     u, d = cfg.rds_resample
-    ctx = (halo_if(cfg, 1) + 3 * cfg.bp_taps
+    ctx = (halo_if(cfg) + 3 * cfg.bp_taps
            + (cfg.bp_taps * u) // u + (151 * d) // u
            + (cfg.bp_taps - 1) // 2 + warmup_if)
-    unit = np.lcm.reduce([cfg.audio_decim, ia, rx.rds_if_align,
+    unit = np.lcm.reduce([cfg.audio_decim, rx.rds_if_align,
                           rx.pll_window if rx.pll_impl == "ff" else 1])
     return int(-(-ctx // int(unit)) * int(unit))
 
@@ -251,10 +240,9 @@ def timesharded_full(rx: Receiver, iq_u8, mesh: Mesh, *,
     cfg = rx.cfg
     assert rx.stereo and rx.rds, "timesharded_full wants stereo+RDS"
     n_dev = mesh.shape[axis]
-    ia = _if_align(rx)
     warm_if = full_warmup_if(rx, warmup_if)
     align_if = int(np.lcm.reduce(
-        [cfg.audio_decim, ia, rx.rds_if_align,
+        [cfg.audio_decim, rx.rds_if_align,
          rx.pll_window if rx.pll_impl == "ff" else 1]))
     align = 2 * cfg.rf_decim * align_if
     iq_np, n_valid = _pad_for_mesh(iq_u8, n_dev, align)

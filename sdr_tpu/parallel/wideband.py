@@ -1,21 +1,16 @@
 """Station-sharded wideband receiver: one antenna stream -> K stations
 over an N-device mesh.
 
-Closes the BASELINE north star "one antenna feeds 64+ stations over N
-hosts" for the WIDEBAND path (VERDICT r4 next-round item 2): the raw
-wideband block is replicated to every device (it is the single physical
-input), each device channelizes ONLY its station slice (the modulated
-filter bank's constants are per-station, so sharding the station axis
-shards the constant matrices — a few hundred KB per device — while the
-wideband samples are read once per device from its local HBM copy), and
-the per-station receivers run as ordinary channel DP.  There is NO
-cross-device communication at any point: the per-device program contains
-zero collectives (asserted in tests/test_parallel.py), so scaling is
-bounded by per-host input broadcast only.
-
-Engine: the Pallas pipelined channelizer (ops/pallas/channelizer_kernel),
-whose call is already functional in its constants — the shard body calls
-`_mfb_pallas_call` with this device's slice of the bank/phasor tables.
+The raw wideband block is replicated to every device (it is the single
+physical input); each device channelizes ONLY its station slice and runs
+the per-station receivers as ordinary channel DP.  The modulated filter
+bank (ops/channelizer.py, engine "mfb") is per-station in all its
+constants: station k owns columns 2k, 2k+1 of the GEMM matrix `_bmat`, row
+k of the factored phasor tables and entry k of the per-block phase advance
+— so sharding the station axis shards those constants (a few hundred KB
+per device), and every device reads the wideband samples once from its own
+copy.  There is NO cross-device communication at any point: the per-device
+program contains zero collectives (asserted in tests/test_parallel.py).
 """
 
 from __future__ import annotations
@@ -25,117 +20,81 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from sdr_tpu.models.receiver import Receiver
-from sdr_tpu.ops.channelizer import WidebandChannelizer
-from sdr_tpu.ops.pallas.channelizer_kernel import EXT, _mfb_pallas_call
+from sdr_tpu.ops.channelizer import (WidebandChannelizer,
+                                     _channelize_mfb,
+                                     _largest_divisor_at_most)
 
 
 def sharded_wideband_run(chan: WidebandChannelizer, rx: Receiver,
                          wide, mesh: Mesh, *, axis: str = "stations",
-                         blocks_per_step: int = 1,
-                         interpret: bool | None = None):
+                         blocks_per_step: int = 1):
     """Run the wideband receiver with stations sharded over `mesh`.
 
-    chan: a WidebandChannelizer(engine="pallas") for ALL K stations (K must
-      be divisible by the mesh axis size, each slice a multiple of 8).
+    chan: an mfb WidebandChannelizer for ALL K stations (K divisible by
+      the mesh axis size).
     rx:   the per-station Receiver (the same program runs on every device).
-    wide: (n,) raw interleaved stream, u8 or f32 — the one antenna input.
+    wide: (n,) raw interleaved stream, u8 or f32 — the one antenna input;
+      whole steps only (a trailing partial step is dropped, as in
+      WidebandReceiver.run).
 
     Returns (outputs (K, ...) sharded over axis, final receiver state).
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    assert chan.engine == "pallas", "station sharding uses the pallas engine"
+    assert chan.engine == "mfb", "station sharding uses the mfb engine"
     n_dev = mesh.shape[axis]
     k = chan.k
     assert k % n_dev == 0, (k, n_dev)
     kl = k // n_dev
-    pl_eng = chan._pl
-    two_d = 2 * chan.decim
 
-    # ---- frame the stream into steps
+    # ---- frame the stream into steps (WidebandReceiver.block_wide)
     bw = 2 * (rx.block_size_u8(blocks_per_step) // 2) * chan.decim
     nsteps = wide.shape[-1] // bw
     assert nsteps > 0, f"capture shorter than one wideband block ({bw})"
     steps = jnp.asarray(wide[: nsteps * bw]).reshape(nsteps, bw)
-    n_out = bw // two_d
-    from sdr_tpu.ops.pallas.channelizer_kernel import \
-        _largest_divisor_at_most
-    tile = _largest_divisor_at_most(n_out, pl_eng.tile)
+    n_out = bw // (2 * chan.decim)
+    tile = _largest_divisor_at_most(n_out, 16384)  # as _mfb_interleaved
 
-    # ---- per-device constant slices, stacked on a leading device axis.
-    # The full engine's tables are (Kp, ...) with Kp = ceil8(K); build
-    # per-slice engines instead so each local block is exactly (kl, ...)
-    subs = [WidebandChannelizer(
-        chan.fs_wide, chan.fs_out, list(chan.freqs[d * kl:(d + 1) * kl]),
-        taps=chan.taps, engine="pallas", ingest=pl_eng.ingest,
-        tile=pl_eng.tile,
-        compute_dtype=("bf16" if chan.compute_dtype == jnp.bfloat16
-                       else "f32"),
-        out_dtype=("bf16" if pl_eng.out_dtype == jnp.bfloat16
-                   else "f32"))._pl
-        for d in range(n_dev)]
-    kp_l = subs[0].kp                       # per-device padded station rows
-    bm = np.stack([np.asarray(s._bm) for s in subs])   # (n_dev, 2kp_l, rows)
-    tabs = [s._tables(n_out, tile) for s in subs]
-    rowc = np.stack([t[0][0] for t in tabs])             # (n_dev, kl, A)
-    rows_ = np.stack([t[0][1] for t in tabs])
-    basec = np.stack([t[1][0] for t in tabs])            # (n_dev, kl, tile)
-    bases = np.stack([t[1][1] for t in tabs])
-    adv = np.stack([t[2] for t in tabs])                 # (n_dev, kl)
+    # ---- per-station constants, split on a leading device axis
+    (rc, rs), (bc, bs), adv = chan._phase_tables(n_out, chan.decim, c=tile)
+    bmat = np.asarray(chan._bmat)                       # (rows, 2K)
+    bm = np.moveaxis(bmat.reshape(bmat.shape[0], n_dev, 2 * kl), 1, 0)
+    split = lambda a: np.asarray(a).reshape(n_dev, kl, *a.shape[1:])
 
     shard = NamedSharding(mesh, P(axis))
-    repl = NamedSharding(mesh, P())
     dev = lambda a: jax.device_put(jnp.asarray(a), shard)
-    bm, rowc, rows_, basec, bases, adv = map(
-        dev, (bm, rowc, rows_, basec, bases, adv))
-    steps = jax.device_put(steps, repl)
-
-    phase0 = jax.device_put(jnp.zeros((k,), jnp.float32), shard)
-    tail0 = jax.device_put(subs[0].init_state()["tail"], repl)
+    consts = tuple(map(dev, (bm, split(rc), split(rs), split(bc), split(bs),
+                             split(adv))))
+    steps = jax.device_put(steps, NamedSharding(mesh, P()))
+    cstate0 = chan.init_state()
+    phase0 = jax.device_put(cstate0["phase"], shard)
+    tail0 = jax.device_put(cstate0["tail"], NamedSharding(mesh, P()))
     rx_state0 = jax.jit(lambda: rx.init_state((k,)), out_shardings=shard)()
 
-    a_pad = -(-(n_out // tile) // 128) * 128
-
     @partial(shard_map, mesh=mesh,
-             in_specs=(P(), P(axis), P(axis), P(axis), P(axis), P(axis),
-                       P(axis), P(axis), P(), P(axis)),
+             in_specs=(P(),) + (P(axis),) * 7 + (P(), P(axis)),
              out_specs=(P(axis), P(axis)), check_vma=False)
-    def run_shard(steps, bm, rowc, rows_, basec, bases, adv, phase, tail,
-                  rx_state):
-        bm, rowc, rows_ = bm[0], rowc[0], rows_[0]
-        basec, bases, adv = basec[0], bases[0], adv[0]
+    def run_shard(steps, bm, rc, rs, bc, bs, adv, phase, tail, rx_state):
+        bm, rc, rs, bc, bs, adv = (a[0] for a in (bm, rc, rs, bc, bs, adv))
 
         def step(carry, wide_blk):
-            phase, tail, rst = carry
-            xbt = wide_blk.reshape(n_out, two_d).T
-            pr = jnp.pad(jnp.cos(phase), (0, kp_l - kl))
-            pi_ = jnp.pad(jnp.sin(phase), (0, kp_l - kl))
-            rotc = pr[:, None] * rowc - pi_[:, None] * rows_
-            rots = pr[:, None] * rows_ + pi_[:, None] * rowc
-            rotc = jnp.pad(rotc, ((0, 0), (0, a_pad - rotc.shape[1])))
-            rots = jnp.pad(rots, ((0, 0), (0, a_pad - rots.shape[1])))
-            i_st, q_st = _mfb_pallas_call(
-                tail, xbt, bm, rotc, rots, basec, bases,
-                kp=kp_l, n_shift=pl_eng._n_shift, t_cols=pl_eng.t_cols,
-                tile=tile, compute_dtype=pl_eng.compute_dtype,
-                interpret=interpret, out_dtype=pl_eng.out_dtype)
-            rst, out = rx.step_iq(rst, i_st[:kl], q_st[:kl])
-            new_phase = jnp.mod(phase + adv, jnp.float32(2.0 * np.pi))
-            return (new_phase, xbt[:, n_out - EXT:], rst), out
+            cst, rst = carry
+            (i_st, q_st), cst = _channelize_mfb(
+                bm, (rc, rs), (bc, bs), adv, chan.decim, chan.state_len,
+                chan._n_shift, tile, chan.compute_dtype, wide_blk, cst)
+            rst, out = rx.step_iq(rst, i_st, q_st)
+            return (cst, rst), out
 
-        (phase, tail, rst), outs = jax.lax.scan(
-            step, (phase, tail, rx_state), steps)
+        (_, rst), outs = jax.lax.scan(
+            step, ({"phase": phase, "tail": tail}, rx_state), steps)
         outs = {k_: (jnp.moveaxis(v, 0, 1).reshape(v.shape[1], -1)
                      if v.ndim == 3 else jnp.moveaxis(v, 0, 1))
                 for k_, v in outs.items()}
         return outs, rst
 
-    args = (steps, bm, rowc, rows_, basec, bases, adv, phase0, tail0,
-            rx_state0)
+    args = (steps, *consts, phase0, tail0, rx_state0)
     compiled = jax.jit(run_shard).lower(*args).compile()
     # expose the per-device program for collective-count inspection
     # (tests assert it contains zero collective ops)

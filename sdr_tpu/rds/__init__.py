@@ -1,6 +1,6 @@
 """RDS (Radio Data System) decode stack.
 
-On-TPU: carrier recovery / resampling / RRC (in models/receiver.py) and
+On-device: carrier recovery / resampling / RRC (in models/receiver.py) and
 clock-data recovery (rds/timing.py).  Host-side: bit decode, frame sync and
 application layer (kbit/s rates).  `decode_rds_soft` chains the full
 post-RRC path.

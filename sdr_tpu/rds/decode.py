@@ -3,7 +3,7 @@
 Per spec p.14 (SURVEY §2.5): symbol pairs HL -> 1, LH -> 0 at 2375 sym/s ->
 1187.5 bit/s, then differential decode (XOR with previous bit).  Host-side
 NumPy: this runs at ~1 kbit/s, far below any accelerator-worthy rate; the
-heavy DSP upstream (IF-rate filtering, PLL, RRC, CDR) is all on-TPU.
+heavy DSP upstream (IF-rate filtering, PLL, RRC, CDR) is all on-device.
 """
 
 from __future__ import annotations

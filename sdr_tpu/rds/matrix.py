@@ -134,7 +134,7 @@ def syndromes_sliding_device(bits):
     The 26 sliding windows are materialized as 26 static shifts (cheap —
     the bit stream is tiny next to the soft waveform it came from) and the
     GF(2) matmul runs as one int32 matmul against H with a mod-2 reduce —
-    the MXU formulation SURVEY §2.5 calls for, used by the batched
+    the matmul formulation SURVEY §2.5 calls for, used by the batched
     multi-station decode path.
     """
     import jax.numpy as jnp

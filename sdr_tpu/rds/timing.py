@@ -2,7 +2,7 @@
 
 The spec requires picking the best sampling instant per 2375 Hz symbol out
 of SPS candidates (spec p.14); the reference never implemented it
-(SURVEY §2.5).  Data-dependent control flow is jit-hostile, so the TPU
+(SURVEY §2.5).  Data-dependent control flow is jit-hostile, so the device
 formulation scores *all* SPS phases and selects by argmax (SURVEY §7
 hard-part 4): reshape the RRC-filtered waveform to (nsym, SPS), score each
 phase by mean |amplitude| at its sampling instants, take the winning column.

@@ -20,8 +20,8 @@ SYMBOL_RATE = 2375.0
 
 
 def standard_group_stream(pi: int = 0x3D44, pty: int = 5,
-                          ps_name: str = "SDR-TPU ",
-                          radio_text: str = "TPU NATIVE FM RECEIVER",
+                          ps_name: str = "SDR FM  ",
+                          radio_text: str = "JAX FM RECEIVER",
                           n_groups: int = 20) -> np.ndarray:
     """A representative bit stream: alternating 0A (PS) and 2A (RT) groups."""
     rt16 = (radio_text + " " * 64)[:64]

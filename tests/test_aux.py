@@ -41,7 +41,7 @@ def test_overlap_save_matches_direct(down, rng):
 ])
 def test_overlap_save_up_matches_direct(up, down, n, rng):
     """U>1 overlap-save (spectral replication) == polyphase filter bank,
-    including multi-block state carry (VERDICT r2 missing item 3)."""
+    including multi-block state carry."""
     taps = 51 * up
     coeff = firdes.lowpass(240e3 * up, 16e3, taps, up)
     direct = PolyphaseResampler(coeff, up, down)
@@ -214,7 +214,8 @@ def test_cli_multi_station(tmp_path):
 
 
 def test_cli_fast_mode(tmp_path):
-    """--fast engines (fused bf16 + chunked PLL) through the CLI surface."""
+    """--fast engines through the CLI surface (on the CPU: feedforward
+    carriers + bf16 FIRs; the front-end kernel is GPU-only)."""
     from sdr_tpu.cli import main
     cfg = MODES[0]
     n = int(0.08 * cfg.rf_fs)
@@ -380,8 +381,8 @@ def test_cli_multi_station_live_rds(tmp_path):
 
 def test_cli_trace_iq(tmp_path):
     """--trace-iq dumps 4 time-domain .dat stage traces of the first block
-    (reference data/iq.gnuplot + iq_filt.gnuplot workflow, VERDICT r3
-    missing item 2) and the pre-filter trace matches the u8 decode."""
+    (reference data/iq.gnuplot + iq_filt.gnuplot workflow) and the
+    pre-filter trace matches the u8 decode."""
     from sdr_tpu.cli import main
 
     cfg = MODES[0]
@@ -405,30 +406,31 @@ def test_cli_trace_iq(tmp_path):
 
 
 def test_checkpoint_roundtrip_fast_engines(tmp_path):
-    """--save-state/--resume semantics for the round-5 fast profile, whose
-    state layout differs from the default engines (raw u8 fe tail, fm/mixed
-    EXT-column contexts, ff phase track, in-kernel RDS delay context):
-    run-half + checkpoint + resume == one uninterrupted run."""
+    """--save-state/--resume semantics for the fast engine set, whose
+    state layout differs from the default engines (raw u8 front-end tail,
+    bf16 FIR tails, ff phase track): run-half + checkpoint + resume == one
+    uninterrupted run."""
     from sdr_tpu import tx
     from sdr_tpu.config import MODES
+    from sdr_tpu.device import interpret_kernels
     from sdr_tpu.models.receiver import Receiver
 
     cfg = MODES[0]
-    rx = Receiver(0, stereo=True, rds=True, fused_frontend="int8",
-                  pll_impl="ff", conv_dtype="bf16", fused_ifbank="bf16",
-                  conv_engine="tiled")
+    rx = Receiver(0, stereo=True, rds=True, fused_frontend=True,
+                  pll_impl="ff", conv_dtype="bf16")
     bs = rx.block_size_u8()
     cap = tx.synthesize_capture(
         cfg, seconds=4 * bs / 2 / cfg.rf_fs,
         left=tx.tone(cfg.rf_fs, 1000.0, 2 * bs),
         right=tx.tone(cfg.rf_fs, 2500.0, 2 * bs))[: 4 * bs]
-    full, _ = rx.run(cap, blocks_per_step=1)
-
-    out1, st = rx.run(cap[: 2 * bs], blocks_per_step=1)
+    with interpret_kernels():
+        full, _ = rx.run(cap, blocks_per_step=1)
+        out1, st = rx.run(cap[: 2 * bs], blocks_per_step=1)
     path = str(tmp_path / "fast_state.npz")
     save_state(path, st)
     st2 = load_state(path, rx.init_state())
-    out2, _ = rx.run(cap[2 * bs:], blocks_per_step=1, state=st2)
+    with interpret_kernels():
+        out2, _ = rx.run(cap[2 * bs:], blocks_per_step=1, state=st2)
     for k in ("left", "rds_soft"):
         joined = np.concatenate([np.asarray(out1[k], np.float32),
                                  np.asarray(out2[k], np.float32)])

@@ -369,88 +369,3 @@ def test_mfb_interleaved_u8_ingest(rng):
                                    atol=2e-6)
         np.testing.assert_allclose(np.asarray(qb), np.asarray(qa),
                                    atol=2e-6)
-
-
-def test_pallas_engine_matches_mfb(rng):
-    """The Pallas pipelined engine (ops/pallas/channelizer_kernel.py) is
-    float-tolerance identical to the XLA mfb engine across blocks (state
-    carry), for both u8 and f32 ingest, on both the flat-interleaved and
-    the pre-phased (2D, N/D) column layouts (which are bit-identical to
-    each other)."""
-    fs_wide, fs_out = 9.6e6, 2.4e6
-    k = 5
-    freqs = list(np.linspace(-3.0e6, 3.0e6, k))
-    n = 4 * 2560 * 2
-    for ingest in ("f32", "u8"):
-        ref = WidebandChannelizer(fs_wide, fs_out, freqs, engine="mfb")
-        new = WidebandChannelizer(fs_wide, fs_out, freqs, engine="pallas",
-                                  ingest=ingest)
-        st_r, st_n, st_c = ref.init_state(), new.init_state(), \
-            new.init_state()
-        for _ in range(3):
-            if ingest == "u8":
-                body = rng.integers(0, 256, size=2 * n, dtype=np.uint8)
-            else:
-                body = rng.standard_normal(2 * n).astype(np.float32)
-            (ir, qr), st_r = ref.call_interleaved(jnp.asarray(body), st_r)
-            (i_f, q_f), st_n = new.call_interleaved(jnp.asarray(body), st_n)
-            xbt = jnp.asarray(body).reshape(-1, 2 * new.decim).T
-            (i_c, q_c), st_c = new._pl.call_cols(xbt, st_c)
-            s = max(float(np.abs(np.asarray(ir)).max()), 1e-9)
-            np.testing.assert_allclose(np.asarray(i_f), np.asarray(ir),
-                                       atol=2e-5 * s)
-            np.testing.assert_allclose(np.asarray(q_f), np.asarray(qr),
-                                       atol=2e-5 * s)
-            np.testing.assert_array_equal(np.asarray(i_c), np.asarray(i_f))
-            np.testing.assert_array_equal(np.asarray(q_c), np.asarray(q_f))
-
-
-def test_pallas_engine_bf16_out(rng):
-    """bf16 output materialization only rounds the store (>35 dB vs f32)."""
-    fs_wide, fs_out = 9.6e6, 2.4e6
-    freqs = [-1.5e6, 0.7e6, 1.8e6]
-    n = 4 * 2560 * 2
-    a = WidebandChannelizer(fs_wide, fs_out, freqs, engine="pallas")
-    b = WidebandChannelizer(fs_wide, fs_out, freqs, engine="pallas",
-                            out_dtype="bf16")
-    sa, sb = a.init_state(), b.init_state()
-    body = rng.standard_normal(2 * n).astype(np.float32)
-    (ia, qa), _ = a.call_interleaved(jnp.asarray(body), sa)
-    (ib, qb), _ = b.call_interleaved(jnp.asarray(body), sb)
-    assert ib.dtype == jnp.bfloat16
-    x = np.asarray(ia)
-    e = np.asarray(ib, np.float32) - x
-    snr = 10 * np.log10(np.mean(x * x) / max(np.mean(e * e), 1e-20))
-    assert snr > 35.0, snr
-
-
-def test_pallas_engine_in_wideband_receiver():
-    """WidebandReceiver composes with the pallas engine (u8 stream path)
-    and matches the mfb-engine composition."""
-    from sdr_tpu.models.receiver import Receiver
-    from sdr_tpu.models.wideband import WidebandReceiver
-    from sdr_tpu import tx
-    from sdr_tpu.config import MODES
-
-    cfg = MODES[0]
-    fs_wide = 2 * cfg.rf_fs
-    rx = Receiver(0)
-    n_st = int(0.1 * cfg.rf_fs)
-    cap = tx.synthesize_capture(cfg, seconds=0.1,
-                                mono=tx.tone(cfg.rf_fs, 1000.0, n_st))
-    f = (cap.astype(np.float32) - 128.0) / 128.0
-    iq = f[0::2] + 1j * f[1::2]
-    from sdr_tpu.ops.channelizer import synthesize_wideband
-    freqs = [-0.5e6, 0.8e6]
-    iw, qw = synthesize_wideband([iq, iq], freqs, cfg.rf_fs, fs_wide)
-    wide = np.stack([iw, qw], axis=-1).reshape(-1)
-    u8 = np.clip(np.round(wide * 64.0) + 128.0, 0, 255).astype(np.uint8)
-
-    outs = {}
-    for eng in ("mfb", "pallas"):
-        chan = WidebandChannelizer(fs_wide, cfg.rf_fs, freqs, engine=eng,
-                                   ingest="u8")
-        wrx = WidebandReceiver(chan, Receiver(0))
-        out, _ = wrx.run(u8, blocks_per_step=1)
-        outs[eng] = np.asarray(out["mono"])
-    np.testing.assert_allclose(outs["pallas"], outs["mfb"], atol=1e-4)

@@ -81,8 +81,8 @@ def test_timeshard_mono_exact(mode):
 def test_timeshard_stereo():
     """PLL warm-up halo time-sharding of the stereo chain: behaviorally
     equivalent to the serial scan (stream SNR + stereo separation within
-    tolerance after the serial lock-in transient) — VERDICT item 5,
-    extending timesharded_mono past its former PLL limit."""
+    tolerance after the serial lock-in transient) — extending
+    timesharded_mono past its former PLL limit."""
     from sdr_tpu.parallel.timeshard import stereo_warmup_if
     from sdr_tpu.utils.compare import stereo_separation_db, stream_snr_db
 
@@ -121,8 +121,8 @@ def test_timeshard_stereo():
 
 def test_timeshard_mono_nondivisible(captures):
     """Capture lengths that don't divide the mesh are trimmed to the
-    serial-equivalent alignment and right-padded internally (VERDICT r2
-    weak item 4) — outputs still match the serial run exactly."""
+    serial-equivalent alignment and right-padded internally — outputs
+    still match the serial run exactly."""
     cfg = MODES[0]
     rx = Receiver(0)
     mesh = make_mesh(8, "time")
@@ -144,7 +144,7 @@ def test_timeshard_mono_nondivisible(captures):
 def test_timeshard_full_stereo_rds():
     """Time-sharding the COMPLETE chain (stereo + RDS): decoded RDS groups
     match the serial run and stereo quality holds — the reference's full
-    single-station capability on >1 device (VERDICT r2 missing item 1)."""
+    single-station capability on >1 device."""
     from sdr_tpu.parallel.timeshard import timesharded_full
     from sdr_tpu.rds import decode_rds_soft
     from sdr_tpu.rds import tx as rds_tx
@@ -181,8 +181,8 @@ def test_timeshard_full_stereo_rds():
 
 def test_polarity_stitch_silent_seam_warns():
     """A seam whose warm-up overlap carries no RDS energy must WARN and keep
-    the running sign instead of trusting a noise-level correlation (VERDICT
-    r3 weak item 6: the unthresholded dot product silently picked an
+    the running sign instead of trusting a noise-level correlation (an
+    unthresholded dot product silently picked an
     arbitrary sign for squelched/faded chunks)."""
     import warnings
 
@@ -232,8 +232,8 @@ def test_polarity_stitch_confident_flip_no_warning():
 def test_station_sharded_wideband_matches_serial():
     """One replicated antenna stream -> 8 stations sharded over 8 devices
     (parallel/wideband.py) == the serial WidebandReceiver composition, and
-    the per-device program contains ZERO collectives (VERDICT r4 item 2:
-    the wideband multi-device story)."""
+    the per-device program contains ZERO collectives (the wideband
+    multi-device story, on the mfb engine's column-sliced filter bank)."""
     from sdr_tpu import tx
     from sdr_tpu.config import MODES
     from sdr_tpu.models.receiver import Receiver
@@ -261,8 +261,7 @@ def test_station_sharded_wideband_matches_serial():
     wide = np.stack([iw, qw], axis=-1).reshape(-1)
     u8 = np.clip(np.round(wide * 32.0) + 128.0, 0, 255).astype(np.uint8)
 
-    chan = WidebandChannelizer(fs_wide, cfg.rf_fs, freqs, engine="pallas",
-                               ingest="u8")
+    chan = WidebandChannelizer(fs_wide, cfg.rf_fs, freqs)
     serial_out, _ = WidebandReceiver(chan, Receiver(0)).run(
         u8, blocks_per_step=1)
 

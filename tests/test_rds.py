@@ -92,7 +92,7 @@ def test_framing_clean_stream():
     assert len(groups) == 6
     info = decode_groups(groups)
     assert info.pi == 0x3D44
-    assert info.ps_name[:4] == "SDR-"
+    assert info.ps_name[:4] == "SDR "
 
 
 def test_framing_inverted_stream():
@@ -139,7 +139,7 @@ def test_full_rf_rds_loop():
     """Groups -> 57 kHz subcarrier -> FM -> u8 IQ -> full receiver -> groups."""
     cfg = MODES[0]
     seconds = 1.2
-    bits = rds_tx.standard_group_stream(pi=0x3D44, ps_name="TPU FM  ",
+    bits = rds_tx.standard_group_stream(pi=0x3D44, ps_name="SDR FM  ",
                                         n_groups=int(seconds * 1187.5 / 104) + 2)
     rds_bb = rds_tx.bits_to_baseband(bits, cfg.rf_fs)
     n = int(seconds * cfg.rf_fs)
@@ -196,7 +196,7 @@ def test_rds_noise_robustness():
 
 
 def test_manchester_pairing_score_agrees_with_decoder(rng):
-    """The on-TPU pairing-score formulation picks the same parity as the
+    """The on-device pairing-score formulation picks the same parity as the
     host decoder."""
     import jax.numpy as jnp
     from sdr_tpu.rds.timing import manchester_pairing_score

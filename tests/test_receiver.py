@@ -12,8 +12,13 @@ import numpy as np
 import pytest
 
 from sdr_tpu.config import MODES
+from sdr_tpu.device import interpret_kernels
 from sdr_tpu.models.receiver import Receiver
 from sdr_tpu import tx
+
+# the --fast engine set with the fused front-end kernel (as on a GPU); on
+# the CPU the kernel runs in the Pallas interpreter
+FAST = dict(fused_frontend=True, pll_impl="ff", conv_dtype="bf16")
 from sdr_tpu.utils.compare import stereo_separation_db, tone_snr_db
 
 
@@ -37,7 +42,7 @@ def test_mono_tone_recovery(mode):
 
 @pytest.mark.parametrize("mode", [0, 2])
 def test_mono_matches_scipy_oracle(mode):
-    """Implementation fidelity: the TPU mono chain == the golden model's
+    """Implementation fidelity: the JAX mono chain == the golden model's
     scipy formulation (model/fmMonoBlock.py:224-255: lfilter + [::decim] +
     discriminator + zero-stuff + lfilter + [::decim]) to float32 precision."""
     import scipy.signal as sps
@@ -206,18 +211,20 @@ def test_compat_shared_audio_state():
 
 @pytest.mark.parametrize("variant", ["f32", "bf16"])
 def test_fused_frontend_end_to_end(variant):
-    """Fused Pallas front-end (exact f32 and fast bf16) through the whole
-    mono chain: bf16's ~53 dB channelizer SNR is transparent at the ~25 dB
-    FM demod distortion floor."""
+    """Fused front-end kernel through the whole mono chain, with f32 and
+    with bf16 FIR stages downstream (the bf16 profile also stores the fm
+    stream at bf16): fidelity against the plain path at each profile's
+    precision, tone SNR above the FM demod distortion floor."""
     from sdr_tpu.utils.compare import stream_snr_db
     cfg = MODES[0]
     n = int(0.15 * cfg.rf_fs)
     cap = tx.synthesize_capture(cfg, seconds=0.15,
                                 mono=tx.tone(cfg.rf_fs, 1000.0, n))
     direct = Receiver(0)
-    fused = Receiver(0, fused_frontend=True if variant == "f32" else "bf16")
+    fused = Receiver(0, fused_frontend=True, conv_dtype=variant)
     od, _ = direct.run(cap)
-    of, _ = fused.run(cap)
+    with interpret_kernels():
+        of, _ = fused.run(cap)
     snr_fidelity = stream_snr_db(np.asarray(of["mono"]),
                                  np.asarray(od["mono"]), skip=100)
     floor = 90.0 if variant == "f32" else 40.0
@@ -228,35 +235,21 @@ def test_fused_frontend_end_to_end(variant):
 
 
 def test_stereo_with_fused_frontend():
-    """Stereo decode through the fused bf16 front-end: the ~53 dB
-    channelizer noise floor is far below the pilot PLL's operating point."""
+    """Stereo decode through the fused front-end kernel with the chunked
+    PLL."""
     cfg = MODES[0]
     n = int(0.4 * cfg.rf_fs)
     cap = tx.synthesize_capture(cfg, seconds=0.4,
                                 left=tx.tone(cfg.rf_fs, 1000.0, n),
                                 right=tx.tone(cfg.rf_fs, 2500.0, n))
-    rx = Receiver(0, stereo=True, fused_frontend="bf16", pll_impl="chunked")
-    out, _ = rx.run(cap)
+    rx = Receiver(0, stereo=True, fused_frontend=True, pll_impl="chunked")
+    with interpret_kernels():
+        out, _ = rx.run(cap)
     skip = cfg.audio_fs // 4
     sep = stereo_separation_db(np.asarray(out["left"]),
                                np.asarray(out["right"]),
                                cfg.audio_fs, 1000.0, skip=skip)
     assert sep > 12.0, f"fused+chunked separation {sep:.1f} dB"
-
-
-def test_fused_frontend_sub_tiles_equivalent():
-    """sub_tiles splits the banded matmul into smaller windows: same
-    outputs to float rounding (the split only removes zero band rows)."""
-    rx1 = Receiver(0, fused_frontend=True)
-    rx2 = Receiver(0, fused_frontend=True, fe_sub_tiles=2)
-    cfg = MODES[0]
-    n = int(0.05 * cfg.rf_fs)
-    cap = tx.synthesize_capture(cfg, seconds=0.05,
-                                mono=tx.tone(cfg.rf_fs, 900.0, n))
-    o1, _ = rx1.run(cap)
-    o2, _ = rx2.run(cap)
-    np.testing.assert_allclose(np.asarray(o1["mono"]),
-                               np.asarray(o2["mono"]), atol=1e-5)
 
 
 @pytest.mark.parametrize("mode", [0, 2])
@@ -308,7 +301,7 @@ def test_stereo_phase_adjust_compensates_sin_convention():
 
 def test_timeshard_with_fused_frontend():
     """Halo-exchange time sharding composes with the fused u8 front-end
-    (the carried tail is raw u8 either way)."""
+    kernel (the carried tail is raw u8 either way)."""
     import jax
     from sdr_tpu.parallel.mesh import make_mesh
     from sdr_tpu.parallel.timeshard import timesharded_mono
@@ -318,13 +311,13 @@ def test_timeshard_with_fused_frontend():
     cfg = MODES[0]
     rx = Receiver(0, fused_frontend=True)
     mesh = make_mesh(4, "time")
-    # fused front-end needs IF tiles of 128 per shard
-    align = 4 * 2 * cfg.rf_decim * int(np.lcm(cfg.audio_decim, 128))
+    align = 4 * 2 * cfg.rf_decim * cfg.audio_decim
     n = ((int(0.2 * cfg.rf_fs) * 2) // align) * align
     cap = tx.synthesize_capture(cfg, seconds=n / 2 / cfg.rf_fs,
                                 mono=tx.tone(cfg.rf_fs, 900.0, n // 2))[:n]
-    audio_p = timesharded_mono(rx, cap, mesh)
-    serial, _ = rx.run(cap)
+    with interpret_kernels():
+        audio_p = timesharded_mono(rx, cap, mesh)
+        serial, _ = rx.run(cap)
     np.testing.assert_allclose(np.asarray(audio_p),
                                np.asarray(serial["mono"]), atol=2e-5)
 
@@ -482,7 +475,7 @@ def test_stereo_rds_ff_pll():
     cfg = MODES[0]
     sec = 0.8
     n = int(sec * cfg.rf_fs)
-    bits = rds_tx.standard_group_stream(pi=0x3D44, ps_name="TPU FM  ",
+    bits = rds_tx.standard_group_stream(pi=0x3D44, ps_name="SDR FM  ",
                                         n_groups=12)
     cap = tx.synthesize_capture(
         cfg, seconds=sec, left=tx.tone(cfg.rf_fs, 1000.0, n),
@@ -500,20 +493,20 @@ def test_stereo_rds_ff_pll():
 
 
 def test_mixed_engine_state_dtypes_stable():
-    """Mixed engine configs (e.g. --fast --exact-fast: int8x2 front end +
-    bf16 IF bank + bf16 convs) must produce step-output state dtypes that
-    MATCH init_state dtypes — a disagreement forces a second jit trace and
-    means the materialization policy is inconsistent (ADVICE r4)."""
+    """Mixed engine configs (the fast set, which stores the fm stream at
+    bf16, with either FIR engine; bf16 FIRs on the plain front end) must
+    produce step-output state dtypes that MATCH init_state dtypes — a
+    disagreement forces a second jit trace and means the materialization
+    policy is inconsistent."""
     from sdr_tpu import tx
     from sdr_tpu.config import MODES
     from sdr_tpu.models.receiver import Receiver
 
     cfg = MODES[0]
     configs = [
-        dict(fused_frontend="int8x2", pll_impl="ff", conv_dtype="bf16",
-             conv_engine="tiled", fused_ifbank="bf16"),   # --fast --exact-fast
-        dict(fused_frontend="bf16", pll_impl="ff", conv_dtype="bf16",
-             conv_engine="tiled", fused_ifbank=True),     # bf16 fe, f32 ifbank
+        FAST,                                        # --fast on a GPU
+        dict(FAST, conv_engine="tiled"),             # fast + tiled FIRs
+        dict(pll_impl="ff", conv_dtype="bf16"),      # --fast on the CPU
     ]
     for kw in configs:
         rx = Receiver(0, stereo=True, rds=True, **kw)
@@ -521,7 +514,8 @@ def test_mixed_engine_state_dtypes_stable():
         cap = tx.synthesize_capture(cfg, seconds=2 * bs / 2 / cfg.rf_fs,
                                     mono=tx.tone(cfg.rf_fs, 1000.0, bs))
         st0 = rx.init_state()
-        st1, _ = rx.step(st0, jnp.asarray(cap[:bs]))
+        with interpret_kernels():
+            st1, _ = rx.step(st0, jnp.asarray(cap[:bs]))
         d0 = jax.tree.map(lambda l: jnp.asarray(l).dtype, st0)
         d1 = jax.tree.map(lambda l: jnp.asarray(l).dtype, st1)
         assert jax.tree.all(jax.tree.map(lambda a, b: a == b, d0, d1)), (
@@ -533,15 +527,15 @@ def test_run_flushes_trailing_remainder():
     instead of dropping up to a whole (coarsely aligned) step: a capture
     sized as an odd multiple of block_align_u8 yields the same output
     length at blocks_per_step=4 as at blocks_per_step=1."""
-    rx = Receiver(0, fused_frontend="bf16", pll_impl="ff",
-                  conv_dtype="bf16", conv_engine="tiled")
+    rx = Receiver(0, **FAST)
     align = rx.block_align_u8()
     n = 9 * align  # not a multiple of block_size_u8(4)
     assert n % rx.block_size_u8(4) != 0
     cap = tx.synthesize_capture(MODES[0], seconds=n / 2 / MODES[0].rf_fs,
                                 mono=tx.tone(MODES[0].rf_fs, 800.0, n))[:n]
-    o1, s1 = rx.run(cap, blocks_per_step=1)
-    o4, s4 = rx.run(cap, blocks_per_step=4)
+    with interpret_kernels():
+        o1, s1 = rx.run(cap, blocks_per_step=1)
+        o4, s4 = rx.run(cap, blocks_per_step=4)
     assert o1["mono"].shape == o4["mono"].shape
     np.testing.assert_allclose(np.asarray(o4["mono"]), np.asarray(o1["mono"]),
                                atol=2e-2)
@@ -551,22 +545,21 @@ def test_run_flushes_trailing_remainder():
 
 
 def test_fast_engine_split_invariance(rng):
-    """Split-invariance of the FULL round-5 fast engine set (int8 front
-    end + fused IF-bank-mix + ffmix carrier/mixer kernel + audio-pair
-    kernel + tiled RDS convs): a random sequence of aligned step sizes
-    equals one single-shot run — the state carry of every fused kernel
-    (raw u8 fe tail, fm ctx, mixed ctx, ff phase track) is exact."""
+    """Split-invariance of the fast engine set (fused front-end kernel +
+    feedforward carriers + bf16 FIRs with the bf16 fm stream): a random
+    sequence of aligned step sizes equals one single-shot run — the state
+    carry (raw u8 front-end tail, discriminator carry, bf16 FIR tails, ff
+    phase track) is exact."""
     cfg = MODES[0]
-    rx = Receiver(0, stereo=True, rds=True, fused_frontend="int8",
-                  pll_impl="ff", conv_dtype="bf16", fused_ifbank="bf16",
-                  conv_engine="tiled")
+    rx = Receiver(0, stereo=True, rds=True, **FAST)
     align = rx.block_align_u8()
     n_u8 = 8 * align
     n = n_u8 // 2
     cap = tx.synthesize_capture(cfg, seconds=n / cfg.rf_fs,
                                 left=tx.tone(cfg.rf_fs, 1000.0, n),
                                 right=tx.tone(cfg.rf_fs, 2000.0, n))[:n_u8]
-    full, _ = rx.run(cap, blocks_per_step=1)
+    with interpret_kernels():
+        full, _ = rx.run(cap, blocks_per_step=1)
 
     state = rx.init_state()
     step = jax.jit(rx.step)
@@ -574,7 +567,8 @@ def test_fast_engine_split_invariance(rng):
     while pos < n_u8:
         k = int(rng.integers(1, 4))
         size = min(k * align, n_u8 - pos)
-        state, out = step(state, cap[pos: pos + size])
+        with interpret_kernels():
+            state, out = step(state, cap[pos: pos + size])
         for key in chunks:
             chunks[key].append(np.asarray(out[key], np.float32))
         pos += size
@@ -586,9 +580,8 @@ def test_fast_engine_split_invariance(rng):
 
 
 def test_mode2_fast_stereo_rds():
-    """Mode 2 (44.1 kHz rational audio 147/800, RDS SPS=35) on the fast
-    profile: ffmix + fused IF-bank run, the audio-pair kernel correctly
-    declines (rational interp), and quality gates hold."""
+    """Mode 2 (44.1 kHz rational audio 147/800, RDS SPS=35, rf_decim 10)
+    on the fast engine set: quality gates hold."""
     from sdr_tpu.rds import decode_rds_soft
     from sdr_tpu.rds import tx as rds_tx
     from sdr_tpu.utils.compare import stereo_separation_db
@@ -602,11 +595,9 @@ def test_mode2_fast_stereo_rds():
         cfg, seconds=sec, left=tx.tone(cfg.rf_fs, 1000.0, n),
         right=tx.tone(cfg.rf_fs, 2500.0, n),
         rds_baseband=rds_tx.bits_to_baseband(bits, cfg.rf_fs)[:n], a_rds=0.1)
-    rx = Receiver(2, stereo=True, rds=True, fused_frontend="int8",
-                  pll_impl="ff", conv_dtype="bf16", fused_ifbank="bf16",
-                  conv_engine="tiled")
-    assert rx._fused_synth and rx._audio_pair is None  # rational audio
-    out, _ = rx.run(cap, blocks_per_step=2)
+    rx = Receiver(2, stereo=True, rds=True, **FAST)
+    with interpret_kernels():
+        out, _ = rx.run(cap, blocks_per_step=2)
     skip = cfg.audio_fs // 4
     sep = stereo_separation_db(np.asarray(out["left"]),
                                np.asarray(out["right"]),

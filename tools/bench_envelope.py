@@ -4,7 +4,10 @@ Runs the full stereo+RDS chain (mode 0) over synthesized 1.2 s captures with
 each impairment, for BOTH the default (exact) and `--fast` engine sets, and
 prints the stereo separation / 1 kHz L SNR / RDS group yield per row.
 
-CPU is fine (exactness, not speed); pass --tpu to run on the device.
+CPU is fine (exactness, not speed): there the fast set's front-end kernel
+runs in the Pallas interpreter.  Pass --gpu to run on the card.
+
+    python tools/bench_envelope.py [--gpu]
 """
 
 from __future__ import annotations
@@ -16,12 +19,13 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if "--tpu" not in sys.argv:
+ON_GPU = "--gpu" in sys.argv
+if not ON_GPU:
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-FAST = dict(fused_frontend="int8", pll_impl="ff", conv_dtype="bf16",
-            fused_ifbank="bf16", conv_engine="tiled")
+# the --fast engine set as it runs on a GPU (front-end kernel included)
+FAST = dict(fused_frontend=True, pll_impl="ff", conv_dtype="bf16")
 
 ROWS = [
     ("none", {}),
@@ -41,8 +45,10 @@ ROWS = [
 
 
 def main():
+    import contextlib
     from sdr_tpu import tx
     from sdr_tpu.config import MODES
+    from sdr_tpu.device import interpret_kernels
     from sdr_tpu.models.receiver import Receiver
     from sdr_tpu.rds import tx as rds_tx
     from sdr_tpu.rds.streaming import StreamingRdsDecoder
@@ -65,7 +71,9 @@ def main():
         cells = []
         for engines in ({}, FAST):
             rx = Receiver(0, stereo=True, rds=True, **engines)
-            out, _ = rx.run(cap, blocks_per_step=8)
+            with (contextlib.nullcontext() if ON_GPU
+                  else interpret_kernels()):
+                out, _ = rx.run(cap, blocks_per_step=8)
             left = np.asarray(out["left"])
             right = np.asarray(out["right"])
             sep = stereo_separation_db(left, right, cfg.audio_fs, 1000.0,

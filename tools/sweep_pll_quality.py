@@ -36,7 +36,7 @@ def main() -> int:
     # RDS capture
     sec_rds = 1.2
     bits = rds_tx.standard_group_stream(
-        pi=0x3D44, ps_name="TPU FM  ",
+        pi=0x3D44, ps_name="SDR FM  ",
         n_groups=int(sec_rds * 1187.5 / 104) + 2)
     rds_bb = rds_tx.bits_to_baseband(bits, cfg.rf_fs)
     n2 = int(sec_rds * cfg.rf_fs)
